@@ -3,7 +3,7 @@
 // (polyphase resample -> energy detect -> TSC correlate -> peak detect ->
 // demodulate), using the same direct (non-FFT) per-sample loops the
 // reference uses. This is the "single-core C++ samples/s" denominator for
-// bench.py (BASELINE.md targets >10x this per TPU chip).
+// bench.py (BASELINE.md targets >10x this per device).
 //
 // Build: g++ -O3 -march=native -o cpu_baseline cpu_baseline.cpp
 #include <chrono>

@@ -17,7 +17,7 @@
 // samples/s number is the honest denominator for bench.py's
 // vs_baseline. Every slot carries a real modulated TSC-0 burst so the
 // chain takes the same path (detection succeeds -> demod runs) that the
-// TPU bench exercises.
+// device bench exercises.
 //
 // Build (see golden/README.md for the include recipe):
 //   g++ -O3 -march=native -include unistd.h \

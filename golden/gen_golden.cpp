@@ -1,8 +1,8 @@
 // Golden-vector generator: drives the REFERENCE sigProcLib (compiled
 // from /root/reference via include paths; nothing copied into this
 // repo) through the canonical scenarios and prints the numerical
-// outputs for the parity test suite to compare against the TPU
-// framework's kernels. Runs the burst-level scenario at sps=1 (the
+// outputs for the parity test suite to compare against the
+// framework's JAX kernels. Runs the burst-level scenario at sps=1 (the
 // 52M compile default) and again at sps=4 (sigProcLibTest geometry);
 // sps=4 lines carry an "SPS4_" prefix.
 #include "sigProcLib.h"

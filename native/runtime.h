@@ -1,4 +1,4 @@
-// Native runtime for the TPU transceiver: UDP datagram transport (the
+// Native runtime for the transceiver daemon: UDP datagram transport (the
 // three planes: data / control / clock) and a timestamped sample ring
 // buffer. C ABI for ctypes.
 //

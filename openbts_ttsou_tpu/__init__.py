@@ -1,9 +1,9 @@
-"""openbts_ttsou_tpu — a TPU-native GSM software-transceiver framework.
+"""openbts_ttsou_tpu — a GSM software-transceiver framework on one accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of OpenBTS
+A from-scratch JAX/XLA re-design of the capabilities of OpenBTS
 2.6TRUNK (ttsou fork). The physical layer (the reference's `sigProcLib` +
 `Transceiver`) is rebuilt as batched, jit-compiled array programs over a
-`[channel, timeslot, sample]` layout, sharded across TPU device meshes;
+`[channel, timeslot, sample]` layout, sharded across device meshes;
 the bit-level GSM stack (FEC, LAPDm, L3), and the surrounding runtime
 (config, logging, transport planes) are provided as host-side components
 speaking the same three logical planes (burst data / control / clock) as

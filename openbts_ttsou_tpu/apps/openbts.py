@@ -47,6 +47,16 @@ class BTSApp:
         self.trx_base_port = trx_base_port
         self.trx_child: Optional[subprocess.Popen] = None
         if spawn_transceiver:
+            # One process per card: the transceiver child owns the
+            # accelerator. This process's own JAX work is per-message
+            # host FEC (gsm/l1fec.py through gsm/channels.py), so it
+            # runs on the CPU backend on purpose. The pin goes through
+            # jax.config, not the environment, so the child does not
+            # inherit it. It must precede this process's first use of
+            # JAX.
+            import jax
+
+            jax.config.update("jax_platforms", "cpu")
             self.restart_transceiver()
         self.n_arfcn = c.get_int("GSM.NumARFCNs", 1)
         self.trx = TransceiverManager(
@@ -421,11 +431,14 @@ class BTSApp:
 def main():  # pragma: no cover - manual entry point
     import argparse
 
-    ap = argparse.ArgumentParser(description="TPU-native OpenBTS")
+    ap = argparse.ArgumentParser(description="OpenBTS on an accelerator")
     ap.add_argument("--config", default=None)
     ap.add_argument("--trx-port", type=int, default=5700)
     ap.add_argument("--spawn-trx", action="store_true")
     args = ap.parse_args()
+    from openbts_ttsou_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     cfg = ConfigurationTable(args.config) if args.config else None
     app = BTSApp(cfg, trx_base_port=args.trx_port,
                  spawn_transceiver=args.spawn_trx, sip_enabled=True)

@@ -6,8 +6,8 @@ Reference behavior: `CommonLibs/BitVector.{h,cpp}` — `Generator` LFSR
 (BitVector.h:121, BitVector.cpp:289-525) — and the GSM 05.03 interleaving
 formulas of `GSM/GSML1FEC.cpp:616-630,811-822,1106-1120,1380-1393`.
 
-TPU-first notes
----------------
+Design notes
+------------
 * The Viterbi decoder is a `lax.scan` over the coded sequence with carry
   (path costs [B,16], path-history registers [B,16]); it reproduces the
   reference's *deferred-decision* decoder (deferral 24, emit the bit 24
@@ -55,8 +55,8 @@ def _crc_contribution_matrix(poly: int, size: int, n_bits: int,
     BitVector.h:66-83) is linear over GF(2) in the input bits with a
     zero initial state, so the final state is the XOR of each input
     bit's unit-impulse response — computed here once per
-    (poly, size, length) in numpy and contracted on the MXU at runtime
-    instead of a length-n sequential scan."""
+    (poly, size, length) in numpy and contracted as one matrix product
+    at runtime instead of a length-n sequential scan."""
     coeff = _poly_bits(poly, size).astype(np.uint8)
     c = np.zeros((n_bits, size), np.uint8)
     for i in range(n_bits):

@@ -12,7 +12,7 @@ stream and the window's decodes — the same L2-frames-in /
 L2-frames-out contract the reference's GSML1FEC presents to the SAP
 mux (GSML1FEC.h:81,343), with the whole layer below it (coding,
 interleaving, GMSK, resampling, detection, demodulation, Viterbi)
-resident on the TPU.
+resident on the device.
 
 Checkpoint/resume: `carry()` returns the complete streaming state as
 one pytree; `restore()` installs it. Together with the deterministic

@@ -2,8 +2,8 @@
 
 Every kernel is batched over arbitrary leading axes (canonically
 ``[channel, burst]``), jit-friendly (static shapes, no data-dependent
-Python control flow), and works in float32/complex64. Hot paths map to
-the MXU as (grouped) convolutions / matmuls.
+Python control flow), and works in float32/complex64. Hot paths are
+(grouped) convolutions and matrix products.
 """
 
 from openbts_ttsou_tpu.ops.fir import (  # noqa: F401

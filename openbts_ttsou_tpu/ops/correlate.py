@@ -7,16 +7,16 @@ interpolation), `:860-932` (detectRACHBurst, energyDetect), `:935-1037`
 correlation (CUSTOM span, `Transceiver52M/sigProcLib.cpp:983-1000`) is
 available through `max_toa`.
 
-TPU-first notes
----------------
-* Correlations are batched grouped convolutions (MXU matmuls); per-burst
-  templates (one TSC per channel) use the depthwise path.
+Design notes
+------------
+* Correlations are batched grouped convolutions; per-burst templates
+  (one TSC per channel) use the depthwise path.
 * The reference's early-late peak refinement (to 1/1024 sample) is kept
   as the same 9-step halving descent, but vectorized over the whole
   burst batch: each step evaluates two 21-tap sinc interpolations from
   one pre-extracted 25-sample window per burst. (An earlier dense
   `[21, 2049]` sinc-bank-matmul variant had the same precision but
-  ~10× the HBM traffic; the faithful descent is both cheaper and
+  ~10× the memory traffic; the faithful descent is both cheaper and
   closer to the reference's tie-break behavior.)
 * Detection decisions stay as masks/soft booleans; no data-dependent
   control flow, so thousands of channels batch cleanly.
@@ -158,8 +158,7 @@ def peak_detect(x: Array):
     peak, so every interpolatePoint evaluation (sigProcLib.cpp:639-659,
     21 taps at [⌊ix⌋−10, min(⌊ix⌋+11, T−1))) reads from one fixed
     25-sample window around i0, extracted once as fused stencil
-    reductions — no [.., 25, T] materialization and no per-row gather
-    (TPU gathers run element-at-a-time).
+    reductions — no [.., 25, T] materialization and no per-row gather.
     """
     x = jnp.asarray(x)
     t = x.shape[-1]
@@ -335,8 +334,8 @@ def analyze_traffic_burst(burst: Array, tsc, sps: int,
     energy search) runs under a `lax.cond` and is skipped at runtime
     when False — the reference only estimates when a slot needs a DFE
     re-estimate (needDFE && aged/invalid, Transceiver.cpp:311-330), so
-    most frames skip it; on TPU the skip saves the estimation tail's
-    HBM traffic, which the memory-bound chain directly feels.
+    most frames skip it, and the skip saves the estimation tail's
+    memory traffic.
     """
     seqs, gains, toas = midamble_bank(sps)
     burst = jnp.asarray(burst)
@@ -402,9 +401,7 @@ def analyze_traffic_burst(burst: Array, tsc, sps: int,
     # floor(toa_offset) + (i−5)·sps only span a small STATIC range (the
     # 8 template TOAs are trace-time constants), so the per-burst
     # windows come from a one-hot contraction against statically-sliced
-    # shifted copies — never a take_along_axis over the burst batch
-    # (TPU gathers run element-at-a-time; this path measured ~190 ms of
-    # a 234 ms block at 1024 carriers before the rewrite).
+    # shifted copies — never a take_along_axis over the burst batch.
     if max_toa is None:
         toa_offset = jnp.broadcast_to(
             jnp.asarray(tmpl_toa, jnp.float32) + span, lead)

@@ -4,8 +4,8 @@ Reference behavior: `Transceiver/sigProcLib.cpp:1246-1340` (designDFE,
 the Al-Dhahir & Cioffi Cholesky-factor recursion) and `:1343-1399`
 (equalizeBurst).
 
-TPU-first notes
----------------
+Design notes
+------------
 * `design_dfe` is a short static recursion (Nf=7 unrolled at trace time),
   batched over channels with `vmap` — it runs off the per-burst hot path
   exactly as the reference re-estimates only every 50 frames

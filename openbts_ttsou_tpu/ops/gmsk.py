@@ -5,12 +5,13 @@ Reference behavior: `Transceiver/sigProcLib.cpp:411-430` (generateGSMPulse),
 (modulateBurst), `:507-519` (vectorSlicer), `:1056-1097` (demodulateBurst),
 `:573-616` (delayVector).
 
-TPU-first notes
----------------
+Design notes
+------------
 * Rotation "tables" are closed-form `exp(+j·(π/2)·k/sps)` ramps computed
   at trace time (the reference's 1024-entry trig LUT + linear interp is a
-  2008-era CPU trick; on TPU exact trig is cheaper and differs only at the
-  LUT's interpolation-error level, well inside the SNR parity bound).
+  2008-era CPU trick; exact trig on the device is cheaper and differs only
+  at the LUT's interpolation-error level, well inside the SNR parity
+  bound).
 * Everything is batched over leading axes; the per-burst fractional delay
   becomes a per-batch 21-tap depthwise convolution.
 """
@@ -138,13 +139,12 @@ def delay_vector(x: Array, delay: Array, num_taps: int = 21,
     delayVector (sigProcLib.cpp:573-616): a `num_taps` sinc interpolator
     at the fractional part, displaced by the integer part.
 
-    TPU-first formulation: the fractional part is a per-burst
-    `num_taps`-tap sinc convolution; the integer part is a radix-9
-    shift — two 9-way one-hot select-accumulate stages (k = 9·q + r)
-    over stride-1 slices. A per-row dynamic gather of [B, T] runs
-    element-at-a-time on TPU (measured ~8× slower), and folding the
-    integer shift into one (num_taps + 2·max_shift)-tap kernel — the
-    previous formulation — costs 101-tap dense FMAs for 21 live taps.
+    Formulation: the fractional part is a per-burst `num_taps`-tap sinc
+    convolution; the integer part is a radix-9 shift — two 9-way
+    one-hot select-accumulate stages (k = 9·q + r) over stride-1
+    slices, instead of a per-row dynamic gather of [B, T]; folding the
+    integer shift into one (num_taps + 2·max_shift)-tap kernel would
+    cost 101-tap dense FMAs for 21 live taps.
     Integer shifts beyond ±max_shift clamp (the engine bounds TOA by
     the correlation window / SETMAXDELAY well inside that).
     """

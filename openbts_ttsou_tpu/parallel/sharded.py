@@ -253,12 +253,13 @@ def sharded_uplink_pipeline(mesh: jax.sharding.Mesh, cfg: eng.TrxConfig,
         fn_start = fn0 + t_idx * spec.frames_per_shard
         state = state._replace(fn=(fn_start).astype(jnp.int32))
 
-        # EXACT per-frame semantics in every mode; implementation
-        # chosen by the bake-off boundary (models/transceiver._exact_rx)
-        from openbts_ttsou_tpu.models.transceiver import _exact_rx
+        # EXACT per-frame semantics in every mode
+        from openbts_ttsou_tpu.models.transceiver import (
+            process_block_exact,
+        )
 
-        state, results = _exact_rx(cfg_local, spec.frames_per_shard,
-                                   state, sym)
+        state, results = process_block_exact(
+            cfg_local, spec.frames_per_shard, state, sym)
         # 4. cross-time-shard state carry: merge the adaptive state so
         # every shard starts the next step from the stream-end state
         if carry_state and collectives:
@@ -384,10 +385,12 @@ def sharded_duplex_pipeline(mesh: jax.sharding.Mesh, cfg: eng.TrxConfig,
                         [(0, 0)] * (samples.ndim - 1) + [(h, h)])
         sym = resample_block(x, spec.p, spec.q, lpf, h, spec.block_in)
         state = state._replace(fn=fn_start)
-        from openbts_ttsou_tpu.models.transceiver import _exact_rx
+        from openbts_ttsou_tpu.models.transceiver import (
+            process_block_exact,
+        )
 
-        state, results = _exact_rx(cfg_local, spec.frames_per_shard,
-                                   state, sym)
+        state, results = process_block_exact(
+            cfg_local, spec.frames_per_shard, state, sym)
         if carry_state and collectives:
             state = _merge_time_shards(
                 state0, state, fn0, n_time * spec.frames_per_shard)

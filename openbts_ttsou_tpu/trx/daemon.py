@@ -7,7 +7,7 @@ through the jitted engine, and speaks the reference's wire protocol so
 an unmodified BTS stack (TRXManager) can control it.
 
 Where the reference runs one transceiver **process per ARFCN**, this
-daemon batches N carriers through one jitted engine step — the TPU-first
+daemon batches N carriers through one jitted engine step — the
 improvement the batched `[chan, slot]` layout buys — while exposing the
 same per-ARFCN control/data port triples (base + 3·i + {1,2}) that
 `TRXManager` expects.
@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -30,7 +31,6 @@ from openbts_ttsou_tpu.runtime import BurstQueue, UdpTransport
 from openbts_ttsou_tpu.trx import engine as eng
 from openbts_ttsou_tpu.trx import protocol as proto
 from openbts_ttsou_tpu.trx.radio import Radio
-from openbts_ttsou_tpu.utils.xfer import device_get_safe, device_put_safe
 from openbts_ttsou_tpu.utils.gsm_time import (
     FRAME_SYMBOLS,
     HYPERFRAME,
@@ -236,7 +236,7 @@ class TrxDaemon:
                     valid[c, tn] = True
                     atten[c, tn] = float(np.frombuffer(b[:4],
                                                        np.float32)[0])
-        slots = device_get_safe(eng.tx_step(
+        slots = jax.device_get(eng.tx_step(
             self.engine_cfg, self.state, jnp.asarray(bits),
             jnp.asarray(valid), jnp.asarray(atten),
             jnp.asarray(self.tx_fn, jnp.int32)))
@@ -264,7 +264,7 @@ class TrxDaemon:
                 frame[c, tn] = raw[off: off + eng.SLOT_SAMPLES * sps]
         self.state = self.state._replace(fn=jnp.asarray(self.fn, jnp.int32))
         self.state, res = eng.rx_step(self.engine_cfg, self.state,
-                                      device_put_safe(frame))
+                                      jax.device_put(frame))
         out: List[Tuple[int, proto.UplinkBurst]] = []
         det = np.asarray(res.detected)
         soft = np.asarray(res.soft_bits)
@@ -345,7 +345,7 @@ class BlockTrxDaemon(TrxDaemon):
     Where the reference overlaps I/O and DSP with three service threads
     (Transceiver52M/Transceiver.cpp:744-778), this daemon overlaps them
     with the device: each `step()` dispatches block N asynchronously,
-    then — while the TPU computes it — retires block N−1 (fetch, radio
+    then — while the device computes it — retires block N−1 (fetch, radio
     write, uplink datagram batch) and ingests block N+1's downlink
     bursts. Burst marshalling is native and dense: `bpq_pop_block` /
     `bpq_push_block` / `udt_send_batch` move whole windows per call
@@ -359,25 +359,22 @@ class BlockTrxDaemon(TrxDaemon):
 
         super().__init__(radio, cfg)
         # The uplink is ALWAYS the reference's exact pullRadioVector
-        # semantics; models/transceiver._exact_rx picks the fastest
-        # implementation for the carrier count (EXACT_BAKEOFF.json).
-        # The round-4 exact/fast mode switch is gone — batched-exact
-        # dominates the approximate block-refresh at every geometry.
+        # semantics (models/transceiver.process_block_exact).
         assert block_frames % 13 == 0, \
             "65/96 streaming needs 13-frame multiples"
         self.spec = UplinkSpec(frames=block_frames)
         n = cfg.n_arfcn
         from openbts_ttsou_tpu.models.transceiver import TX_TAIL_SYM
 
-        self._tx_tail = device_put_safe(
+        self._tx_tail = jax.device_put(
             np.zeros((n, TX_TAIL_SYM), np.complex64))
         self._rx_block = 0
         self._tx_block = 0
         self._frames_since_late = 0
         #: blocks kept in flight on the device before retiring. Depth 1
         #: overlaps host I/O with one device step (the reference's
-        #: thread overlap); deeper pipelines amortize high-latency
-        #: device attachments at the cost of `depth` blocks of latency.
+        #: thread overlap); deeper pipelines hide a slower transfer at
+        #: the cost of `depth` blocks of latency.
         self.pipeline_depth = pipeline_depth
         self._pending: list = []  # (out_buffer, rx_fn0, tx_block)
         #: device-side result compaction (duplex_block_compact): D2H
@@ -500,10 +497,9 @@ class BlockTrxDaemon(TrxDaemon):
 
         live_idx = np.flatnonzero(live)
         assert len(live_idx) == n_live
-        # issue BOTH row fetches before reading either: on a
-        # high-latency attachment (the dev relay's ~27 ms RTT) the two
-        # slice copies then fly concurrently — the compact path costs
-        # ~2 round trips total (header + rows) instead of 3
+        # issue BOTH row fetches before reading either: the two slice
+        # copies then fly concurrently — the compact path costs 2 round
+        # trips (header + rows) instead of 3
         rows_dev = tx_buf[: self._bucket(n_live, 8)] if n_live else None
         prows_dev = pkt_buf[: self._bucket(n_det, 256)] if n_det \
             else None
@@ -628,13 +624,15 @@ def main():  # pragma: no cover - manual entry point
     import argparse
 
     from openbts_ttsou_tpu.trx.radio import LoopbackRadio
+    from openbts_ttsou_tpu.utils.compile_cache import enable_compile_cache
 
-    ap = argparse.ArgumentParser(description="TPU GSM transceiver daemon")
+    ap = argparse.ArgumentParser(description="GSM transceiver daemon")
     ap.add_argument("--base-port", type=int, default=5700)
     ap.add_argument("--peer", default="127.0.0.1")
     ap.add_argument("--arfcns", type=int, default=1)
     ap.add_argument("--loopback-delay", type=int, default=0)
     args = ap.parse_args()
+    enable_compile_cache()
     radios = [LoopbackRadio(delay_samples=args.loopback_delay)
               for _ in range(args.arfcns)]
     daemon = TrxDaemon(radios,

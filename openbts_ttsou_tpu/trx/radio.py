@@ -169,7 +169,7 @@ class BankRadio(Radio):
     """Vectorized multi-carrier radio: one timestamped read/write moves
     all `n_chan` carriers ([C, n] arrays). The block-pipelined daemon's
     I/O surface — where the reference runs one USRPDevice per ARFCN
-    process, the TPU daemon batches carriers and the radio follows."""
+    process, this daemon batches carriers and the radio follows."""
 
     n_chan: int = 1
 

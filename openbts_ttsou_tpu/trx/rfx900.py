@@ -8,7 +8,7 @@ field constants USRPDevice.h:100-151; tx_setFreq/rx_setFreq
 USRPDevice.cpp:106-150).  The synthesizer can only land on multiples of
 the phase-detector frequency, so tuning has two halves: the analog plan
 (this module) and a digital shift of the residual in the DDC/DUC
-(`m_uTx->set_tx_freq(0, wFreq-actFreq)`).  In the TPU framework the
+(`m_uTx->set_tx_freq(0, wFreq-actFreq)`).  In this framework the
 residual shift is `ops.signal.frequency_shift` on the sample stream;
 this module owns the plan math so the daemon can report achieved RF
 frequencies and feed the residual to the NCO, and so a hardware backend

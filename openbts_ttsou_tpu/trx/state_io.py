@@ -13,17 +13,16 @@ from __future__ import annotations
 
 import json
 
-import jax.numpy as jnp
+import jax
 import numpy as np
 
 from openbts_ttsou_tpu.trx import engine as eng
-from openbts_ttsou_tpu.utils.xfer import device_get_safe, device_put_safe
 
 _FIELDS = list(eng.TrxState._fields)
 
 
 def save_state(path: str, cfg: eng.TrxConfig, state: eng.TrxState) -> None:
-    arrays = {name: device_get_safe(getattr(state, name)) for name in _FIELDS}
+    arrays = {name: jax.device_get(getattr(state, name)) for name in _FIELDS}
     arrays["__config__"] = np.frombuffer(
         json.dumps(cfg._asdict()).encode(), np.uint8)
     np.savez(path, **arrays)
@@ -32,6 +31,6 @@ def save_state(path: str, cfg: eng.TrxConfig, state: eng.TrxState) -> None:
 def load_state(path: str) -> tuple[eng.TrxConfig, eng.TrxState]:
     data = np.load(path)
     cfg = eng.TrxConfig(**json.loads(bytes(data["__config__"]).decode()))
-    state = eng.TrxState(**{name: device_put_safe(data[name])
+    state = eng.TrxState(**{name: jax.device_put(data[name])
                             for name in _FIELDS})
     return cfg, state

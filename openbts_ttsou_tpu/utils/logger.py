@@ -76,11 +76,11 @@ class _AlarmHandler(logging.Handler):
             gAlarms.report(self.format(record))
 
 
-_root = logging.getLogger("openbts_tpu")
+_root = logging.getLogger("openbts_ttsou")
 _root.addHandler(_AlarmHandler())
 
 
-def get_logger(name: str = "openbts_tpu") -> logging.Logger:
+def get_logger(name: str = "openbts_ttsou") -> logging.Logger:
     return logging.getLogger(name)
 
 

@@ -1,7 +1,7 @@
 """Slow, direct NumPy golden model of the reference DSP semantics.
 
 Hand-written from the documented behavior of Transceiver/sigProcLib.cpp
-(see SURVEY.md §2.1); used only to validate the TPU kernels on small
+(see SURVEY.md §2.1); used only to validate the JAX kernels on small
 inputs. Deliberately scalar/loopy so it mirrors the C++ exactly.
 """
 

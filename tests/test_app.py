@@ -73,7 +73,7 @@ def test_cli_commands(rig):
     assert p.process("assignment") == "early"
     assert p.process("assignment veryearly") == "veryearly"
     assert "usage" in p.process("assignment sometimes")
-    assert p.process("shortname OpenBTS-TPU") == "OpenBTS-TPU"
+    assert p.process("shortname OpenBTS-X") == "OpenBTS-X"
     lac0 = app.bts.lac
     assert f"LAC={lac0 + 1}" in p.process("rolllac")
     assert "LAC=555" in p.process("rolllac 555")
@@ -93,7 +93,7 @@ def test_cli_sendsms_and_calls(rig):
 def test_config_file_driven_app(tmp_path):
     from openbts_ttsou_tpu.utils.config import ConfigurationTable
 
-    cfg = ConfigurationTable("examples/openbts_tpu.config")
+    cfg = ConfigurationTable("examples/openbts.config")
     assert cfg.get_int("GSM.ARFCN") == 207
     assert cfg.is_static("GSM.ARFCN")
     from openbts_ttsou_tpu.gsm.btsconfig import BTSConfig

@@ -138,7 +138,7 @@ GSM.Neighbors 1 2 3
 
 
 def test_alarm_ring():
-    log = get_logger("openbts_tpu.test")
+    log = get_logger("openbts_ttsou.test")
     before = len(gAlarms.recent())
     log.log(ALARM, "test alarm %d", 42)
     recent = gAlarms.recent()

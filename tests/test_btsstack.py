@@ -1,5 +1,5 @@
 """Full-stack integration: TRXManager ↔ TrxDaemon over the UDP wire
-protocol, with the TPU engine and a loopback radio in the middle.
+protocol, with the JAX engine and a loopback radio in the middle.
 
 BTS side: LogicalChannel (SDCCH + LAPDm) → ARFCNManager →
 [UDP data plane] → TrxDaemon (tx_step modulation) → LoopbackRadio →

@@ -1,6 +1,6 @@
 """End-to-end daemon test: a fake BTS drives the transceiver daemon over
-the reference's UDP wire protocol with a loopback radio — the TPU
-equivalent of the reference's testRadio.cpp + SWLOOPBACK flow."""
+the reference's UDP wire protocol with a loopback radio — this
+framework's equivalent of the reference's testRadio.cpp + SWLOOPBACK flow."""
 
 import numpy as np
 import pytest

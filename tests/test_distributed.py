@@ -2,7 +2,7 @@
 
 The reference's distributed story is two cooperating processes joined
 by UDP (Transceiver52M/Transceiver.cpp:42-44); BASELINE asks for ≥80%
-scaling efficiency at ≥2 hosts. Real multi-host TPU pods are not
+scaling efficiency at ≥2 hosts. Real multi-host accelerators are not
 available in CI, so this test stands up the real thing at CPU scale:
 two OS processes, a `jax.distributed` coordinator on localhost, one
 virtual CPU device each, and the full `sharded_uplink_pipeline`

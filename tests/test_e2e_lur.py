@@ -113,11 +113,12 @@ class DaemonClock:
         pass
 
 
-@pytest.fixture(scope="module")
-def rig():
+def make_rig(base=BASE):
+    """BTSApp + TrxDaemon over a duplex loopback radio, configured and
+    powered on: (app, daemon, radio, sip_out)."""
     radio = DuplexLoopbackRadio()
-    daemon = TrxDaemon(radio, TrxDaemonConfig(base_port=BASE))
-    app = BTSApp(trx_base_port=BASE)
+    daemon = TrxDaemon(radio, TrxDaemonConfig(base_port=base))
+    app = BTSApp(trx_base_port=base)
     # the simulated radio runs much slower than real time; keep the
     # channel-recycling timers out of the way
     app.bts.config.set("GSM.Timer.T3101", "600000")
@@ -147,6 +148,12 @@ def rig():
                        ("POWERON", ())):
         daemon.handle_control(proto.pack_command(verb, *args))
     assert daemon.on
+    return app, daemon, radio, sip_out
+
+
+@pytest.fixture(scope="module")
+def rig():
+    app, daemon, radio, sip_out = make_rig()
     yield app, daemon, radio, sip_out
     app.shutdown()
 
@@ -186,7 +193,11 @@ def _reclaim_channels(rig):
 
 
 def test_over_the_air_location_update(rig):
-    app, daemon, radio, sip_out = rig
+    location_update(*rig)
+
+
+def location_update(app, daemon, radio, sip_out):
+    """The over-the-air LUR scenario; returns the decoded accept."""
     ms = MS(radio, daemon, app.bts.bcc)
     pump(app, daemon, 5)  # beacon warm-up
 
@@ -268,6 +279,7 @@ def test_over_the_air_location_update(rig):
     assert accept.identity is not None
     assert app.control.tmsis.imsi(accept.identity.tmsi) == IMSI
     assert accept.lai.lac == app.bts.lac
+    return accept
 
 
 def test_over_the_air_mo_call(rig):
@@ -1164,7 +1176,7 @@ def test_over_the_air_lur_delivers_shortname(rig):
                 not app.control.pending_release:
             break
         pump(app, daemon)
-    app.bts.config.set("GSM.ShortName", "TPUNet")
+    app.bts.config.set("GSM.ShortName", "TestNet")
     try:
         ms = MS(radio, daemon, app.bts.bcc)
         free_before = app.bts.sdcch_available()
@@ -1233,7 +1245,7 @@ def test_over_the_air_lur_delivers_shortname(rig):
         kinds = [type(m).__name__ for m in got]
         infos = [m for m in got if isinstance(m, mm.MMInformation)]
         assert infos, f"no MMInformation off the air; got {kinds}"
-        assert infos[0].short_name == "TPUNet"
+        assert infos[0].short_name == "TestNet"
         # ordering: the name precedes the accept (the reference's send
         # order at MobilityManagement.cpp:203-207)
         assert kinds.index("MMInformation") < \

@@ -96,9 +96,9 @@ def assert_equal_states(sa, sb, atol=2e-4):
         if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
             np.testing.assert_array_equal(a, b, err_msg=name)
         else:
-            # rtol at float32-ulp scale: the batched engine's one-hot
-            # contraction accumulates in a different order than the
-            # scan's jnp.where select — same math, last-ulp rounding
+            # rtol at float32-ulp scale: the batched engine computes
+            # the candidates in batched kernels, the scan per frame —
+            # same math, last-ulp rounding
             np.testing.assert_allclose(a, b, atol=atol, rtol=5e-6,
                                        err_msg=name)
 

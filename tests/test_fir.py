@@ -93,20 +93,39 @@ def test_polyphase_round_trip_preserves_burst():
     assert ber < 0.01, f"round-trip BER {ber}"
 
 
-def test_einsum_conv_backend_equivalence(monkeypatch):
-    """The conv-free (window-gather einsum) backend must match the
-    conv_general_dilated backend exactly."""
+def test_einsum_conv_backend_equivalence():
+    """The window-contraction form (banded product for burst-length
+    shared filters, strided windows × filter bank for the resampler)
+    must match the direct convolutions: numpy's full convolution and
+    the zero-stuffed dilated `lax.conv_general_dilated` resampler."""
     a = _rand_complex(3, 80)
     b_shared = _rand_complex(21)
     x = _rand_complex(2, 24000)
     lpf = fir.resampler_lpf(65, 96, 961)
 
-    ref_conv = np.asarray(fir.convolve(a, b_shared, "full"))
-    ref_poly = np.asarray(fir.polyphase_resample(x, 65, 96, lpf))
-
-    monkeypatch.setattr(fir, "CONV_IMPL", "einsum")
+    ref_conv = np.stack([np.convolve(a[i].astype(np.complex128),
+                                     b_shared.astype(np.complex128))
+                         for i in range(3)])
+    ref_poly = np.asarray(fir.polyphase_resample(x, 65, 96, lpf,
+                                                 method="dilated"))
     got_conv = np.asarray(fir.convolve(a, b_shared, "full"))
     got_poly = np.asarray(fir.polyphase_resample(x, 65, 96, lpf))
     np.testing.assert_allclose(got_conv, ref_conv, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got_poly, ref_poly, rtol=2e-4,
                                atol=2e-4 * np.abs(ref_poly).max())
+
+
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("p,q,taps", [(65, 96, 961), (96, 65, 651)])
+def test_small_batch_resampler_matches_dilated(rows, p, q, taps):
+    """The polyphase resampler at the small row counts of a real site
+    (8 carriers, or 8 carriers × 8 slots) against the direct
+    zero-stuffed dilated convolution."""
+    x = _rand_complex(rows, 650)
+    lpf = fir.resampler_lpf(p, q, taps)
+    got = np.asarray(fir.polyphase_resample(x, p, q, lpf))
+    want = np.asarray(fir.polyphase_resample(x, p, q, lpf,
+                                             method="dilated"))
+    assert got.shape == want.shape == (rows, -(-650 * p // q))
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-4 * np.abs(want).max())

@@ -147,7 +147,7 @@ def test_uplink_block_batched_exact_recovers_bursts():
 
 
 def test_uplink_block_decoded_xcch_on_device():
-    """TPU-resident receiver: plant a 4-burst XCCH block (FEC-encoded
+    """Device-resident receiver: plant a 4-burst XCCH block (FEC-encoded
     184-bit frame) on an FN%4 boundary; uplink_block_decoded detects,
     demodulates AND FEC-decodes it in one program, honoring a
     misaligned block-start FN."""
@@ -205,7 +205,7 @@ def test_uplink_block_decoded_xcch_on_device():
 
 
 def test_full_duplex_fec_on_device():
-    """TPU-resident full duplex: downlink_block_encoded (FireCode +
+    """Device-resident full duplex: downlink_block_encoded (FireCode +
     conv + interleave + GMSK + 96/65) feeds uplink_block_decoded
     (65/96 + detect + demod + Viterbi + syndrome) — L2 frames in, the
     same L2 frames out, two fused programs end to end."""

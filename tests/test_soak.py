@@ -3,7 +3,7 @@
 The reference transceiver runs indefinitely against USRP clock drift,
 USB underruns and a BTS that schedules bursts with variable lead
 (driveTransmitFIFO's adaptive latency, Transceiver.cpp:672-722; clock
-beacon every 216 frames, :726-739). This drives the TPU daemon through
+beacon every 216 frames, :726-739). This drives the daemon through
 the same regime over the wire protocol with a loopback radio:
 
 * downlink bursts scheduled with jittered lead (1-5 frames),

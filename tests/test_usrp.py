@@ -23,6 +23,19 @@ from openbts_ttsou_tpu.trx.usrp import (
 from openbts_ttsou_tpu.utils import constants as C
 
 
+def _wait_for_socket(path, srv, timeout_s=60.0):
+    """Wait until the bus-server child has bound its socket. The child
+    imports the package (and JAX) first, which takes seconds on a
+    loaded host."""
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while not path.exists():
+        assert srv.poll() is None, "bus server exited"
+        assert time.monotonic() < deadline, "bus server never bound"
+        time.sleep(0.05)
+
+
 def test_build_packets_format():
     """writeSamples packetization (USRPDevice.cpp:467-505): header
     fields, 504-byte splits, per-packet timestamp advance."""
@@ -166,7 +179,6 @@ def test_socket_bus_crosses_process(tmp_path):
     sit)."""
     import subprocess
     import sys
-    import time
 
     from openbts_ttsou_tpu.trx.usrp import SocketBus
 
@@ -175,10 +187,7 @@ def test_socket_bus_crosses_process(tmp_path):
         [sys.executable, "-m", "openbts_ttsou_tpu.trx.bus_server",
          "--socket", sock, "--carriers", "1", "--hw-delay", "137"])
     try:
-        for _ in range(100):
-            if (tmp_path / "usrp.sock").exists():
-                break
-            time.sleep(0.05)
+        _wait_for_socket(tmp_path / "usrp.sock", srv)
         bus = SocketBus(sock)
         radio = USRPRadio(bus)
         assert radio.start()
@@ -206,7 +215,6 @@ def test_block_daemon_over_socket_bus(tmp_path):
     arrive at the server as USRP packets."""
     import subprocess
     import sys
-    import time
 
     from openbts_ttsou_tpu.ops import fir, gmsk
     from openbts_ttsou_tpu.runtime import UdpTransport
@@ -249,10 +257,7 @@ def test_block_daemon_over_socket_bus(tmp_path):
          "--socket", sock, "--carriers", str(n), "--hw-delay", "0",
          "--stimulus", str(tmp_path / "stim.npy")])
     try:
-        for _ in range(100):
-            if (tmp_path / "usrp.sock").exists():
-                break
-            time.sleep(0.05)
+        _wait_for_socket(tmp_path / "usrp.sock", srv)
         radios = [USRPRadio(SocketBus(sock, carrier=c))
                   for c in range(n)]
         bank = USRPBankRadio(radios)

@@ -1,15 +1,19 @@
 #!/usr/bin/env python
 """Compiled-HLO collective inventory for the sharded pipelines.
 
-Compiles the sharded uplink and duplex steps on a virtual mesh and
-walks the optimized HLO for every collective op (collective-permute,
-all-gather, all-reduce, reduce-scatter, all-to-all), reporting the op
-count and exact bytes moved per step — the measured evidence behind
-SCALING.md's "what moves on ICI per step" table (replacing prose
-estimates with the compiler's own numbers).
+`inventory(compiled)` walks a compiled program's optimized HLO for every
+collective op (collective-permute, all-gather, all-reduce,
+reduce-scatter, all-to-all) and reports the op count and exact bytes
+landing on each device per step — the compiler's own numbers behind
+SCALING.md's "what moves between devices per step" table. The GPU
+lowers collectives as asynchronous `*-start`/`*-done` pairs whose start
+returns a tuple of buffers; each pair counts once, by the shape of its
+`-done` result.
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    JAX_PLATFORMS=cpu python tools/collective_inventory.py
+Run as a script, it compiles the sharded uplink and duplex steps on a
+virtual 8-device CPU mesh and prints their inventories:
+
+    python tools/collective_inventory.py
 """
 
 import collections
@@ -19,15 +23,6 @@ import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp
-import numpy as np
 
 DTYPE_BYTES = {"f32": 4, "f64": 8, "c64": 8, "c128": 16, "s32": 4,
                "u32": 4, "s64": 8, "u8": 1, "s8": 1, "pred": 1,
@@ -54,28 +49,45 @@ COLLECTIVES = ("collective-permute", "all-gather", "all-reduce",
                "reduce-scatter", "all-to-all")
 
 
-def inventory(compiled) -> dict:
-    """Parse the optimized HLO text for collective ops → {op: (count,
-    bytes_per_step)} where bytes is the op's OUTPUT shape (what lands
-    on each device)."""
-    txt = compiled.as_text()
+_INSTR_RE = re.compile(r"(?:ROOT )?%?\S+ = (.*?) ([\w-]+)\(")
+
+
+def inventory_text(hlo: str) -> dict:
+    """Collective ops in optimized HLO text → {op: {"count",
+    "bytes_per_step"}}, bytes being each op's RESULT shape (what lands
+    on each device). An async pair is counted at its `-done`."""
     out: dict = collections.defaultdict(lambda: [0, 0])
-    for line in txt.splitlines():
-        line = line.strip()
-        m = re.match(r"%?\S+ = (\S+) (\S+)\(", line)
+    for line in hlo.splitlines():
+        m = _INSTR_RE.match(line.strip())
         if not m:
             continue
-        shape_str, op = m.group(1), m.group(2)
-        base = op.split(".")[0]
-        if base.rstrip("-start") in COLLECTIVES or base in COLLECTIVES:
-            key = base.replace("-start", "")
+        shape_str, op = m.groups()
+        if op.endswith("-start"):
+            continue
+        key = op.removesuffix("-done")
+        if key in COLLECTIVES:
             out[key][0] += 1
             out[key][1] += shape_bytes(shape_str)
     return {k: {"count": v[0], "bytes_per_step": v[1]}
             for k, v in sorted(out.items())}
 
 
+def inventory(compiled) -> dict:
+    """`inventory_text` of a `jax.stages.Compiled` program."""
+    return inventory_text(compiled.as_text())
+
+
 def main():
+    os.environ.setdefault("XLA_FLAGS",
+                          "--xla_force_host_platform_device_count=8")
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+    import jax.numpy as jnp
+    import numpy as np
+
     from openbts_ttsou_tpu.parallel import (
         make_mesh,
         sharded_duplex_pipeline,

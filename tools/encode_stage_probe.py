@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Per-stage timing of the duplex_decoded legs on the TPU.
+"""Per-stage timing of the duplex_decoded legs on the GPU.
 
 Times each sub-program of the fully-resident duplex as a fused scan
 (same hoisting-proofed pattern as stage_bench): the FEC encode leg
@@ -7,18 +7,9 @@ Times each sub-program of the fully-resident duplex as a fused scan
 _encode_dl_window), the radio tx leg, the exact rx, rx+decode, and
 the whole duplex_block_decoded.
 
-Two findings this probe produced (round 5):
-
-* DCE trap: a probe that sums only `blocks.ok` lets XLA dead-code-
-  eliminate the TCH/FACCH/RACH decoders entirely — "decode adds 1.0
-  ms/frame" was really "the XCCH scan adds 1.0"; summing every output
-  field shows full decode at ~3 ms/frame @1024, Viterbi-scan-bound.
-  The later stages here sum all fields they want timed.
-* The scan-merge experiment (one 65k-row Viterbi scan instead of
-  XCCH's 41k + FACCH's 24.5k) measured SLOWER inside decode_block
-  despite winning a standalone microbench — the adopted fix is the
-  static slot split (decode_block xcch_tns/tch_tns/rach_tns) instead:
-  each Viterbi runs only on its configured TNs.
+DCE trap: a probe that sums only `blocks.ok` lets XLA dead-code-
+eliminate the TCH/FACCH/RACH decoders entirely, so the later stages
+here sum every output field they want timed.
 
     python tools/encode_stage_probe.py --carriers 1024
 """
@@ -43,14 +34,13 @@ def main():
     import jax.lax as lax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      __file__.rsplit("/", 2)[0] + "/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from openbts_ttsou_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from openbts_ttsou_tpu.gsm import l1fec
     from openbts_ttsou_tpu.models import transceiver as M
     from openbts_ttsou_tpu.trx import TrxConfig, init_state
-    from openbts_ttsou_tpu.utils.xfer import device_put_safe
 
     c = args.carriers
     f = 13
@@ -60,7 +50,7 @@ def main():
     state = init_state(cfg)
     rng = np.random.default_rng(0)
 
-    put = device_put_safe
+    put = jax.device_put
     frames184 = put(rng.integers(0, 2, (4, c, 8, 184)).astype(np.uint8))
     xcch_valid = put(np.ones((4, c, 8), bool))
     gt = 3
@@ -80,9 +70,8 @@ def main():
     from openbts_ttsou_tpu.trx import engine as eng
     from openbts_ttsou_tpu.ops import fir
 
-    # `state` is passed as a jit ARGUMENT everywhere: closing over it
-    # would embed its complex filler tables as constants via a host
-    # fetch, which the relay cannot do for complex64 (utils/xfer).
+    # `state` is passed as a jit ARGUMENT everywhere rather than baked
+    # into each program as a constant.
     def timed(name, mk_step, x0):
         """mk_step(st, x) -> (x', probe); scan it iters times fused."""
 
@@ -95,10 +84,9 @@ def main():
             xf, ps = lax.scan(body, x0, None, length=iters)
             return jnp.sum(ps)
 
-        r = run(state, x0)
-        float(np.asarray(r))  # warm
+        jax.block_until_ready(run(state, x0))  # warm
         t0 = time.perf_counter()
-        float(np.asarray(run(state, x0)))
+        jax.block_until_ready(run(state, x0))
         dt = time.perf_counter() - t0
         ms_frame = dt / iters / f * 1000
         print(f"[probe] {name:34s} {dt*1000/iters:8.2f} ms/window "
@@ -175,7 +163,7 @@ def main():
         h = x
         sym_ul = resample_block(h.astype(jnp.complex64), spec.p, spec.q,
                                 lpf_rx, M.RX_HALO_DEV, spec.block_in)
-        st2, resx = M._exact_rx(cfg, f, st, sym_ul[..., :spec.block_symbols])
+        st2, resx = M.process_block_exact(cfg, f, st, sym_ul[..., :spec.block_symbols])
         h2 = h + jnp.sum(resx.soft_bits[..., 0]) * 1e-9
         return h2, jnp.sum(resx.timing)
 
@@ -185,7 +173,7 @@ def main():
         h = x
         sym_ul = resample_block(h.astype(jnp.complex64), spec.p, spec.q,
                                 lpf_rx, M.RX_HALO_DEV, spec.block_in)
-        st2, resx = M._exact_rx(cfg, f, st, sym_ul[..., :spec.block_symbols])
+        st2, resx = M.process_block_exact(cfg, f, st, sym_ul[..., :spec.block_symbols])
         blocks = M.decode_block(resx, jnp.asarray(0, jnp.int32), f, 0,
                                 prev_soft=prev_soft, prev_valid=prev_valid)
         h2 = h + jnp.sum(resx.soft_bits[..., 0]) * 1e-9
@@ -222,7 +210,7 @@ def main():
         (ul_halo, tail0, tch_carry, xcch_carry, prev_soft, prev_valid))
 
     # 8. the same program with the static slot split (4 XCCH + 4 TCH
-    # TNs) — the A/B behind the BENCH_r05_sweep duplex_decoded gain
+    # TNs)
     def s_full_split(st, x):
         h, tail, tc, xc, ps, pv = x
         st2, tx, tail2, blocks, carry2, ps2, pv2 = \

@@ -1,20 +1,22 @@
 #!/usr/bin/env python
-"""Bake-off: the two EXACT-semantics uplink engines on the real chip.
+"""Bake-off: the two EXACT-semantics uplink engines on the GPU.
 
 `process_block_exact` (batched heavy ops + light scalar scan) vs the
 per-frame `rx_step` scan — identical semantics (tests/test_exact_block
-.py), different schedules. This measures both at several carrier
-counts with bench.py's k/2k fused-scan methodology (fixed dispatch
-overhead cancels exactly) and prints one JSON line with the measured
-frontier; EXACT_BATCH_MAX_CHAN in models/transceiver.py is set from
-this artifact.
+.py), different schedules. Each is compiled once per carrier count on
+bench.py's planted-burst symbol stream (standard channel layout),
+warmed, and timed over `--reps` calls that each end in
+`block_until_ready`. Prints the median and minimum ms per 13-frame block
+and, as its last line, one JSON object with the measured frontier —
+the evidence for the device programs' use of the batched schedule.
 
-    python tools/exact_bakeoff.py [--carriers 8,32,128,512] [--iters 6]
+    python tools/exact_bakeoff.py [--carriers 8,32,64,128,512,1024]
 """
 
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -24,115 +26,75 @@ sys.path.insert(0, REPO)
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--carriers", default="8,32,128,512")
-    ap.add_argument("--iters", type=int, default=6)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--carriers", default="8,32,64,128,512,1024")
+    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
 
     import jax
-
-    cache_dir = os.path.join(REPO, ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     import jax.lax as lax
     import jax.numpy as jnp
-    import numpy as np
 
+    from bench import planted_symbols, standard_chan_type
     from openbts_ttsou_tpu.models.transceiver import (
         UplinkSpec,
         process_block_exact,
     )
-    from openbts_ttsou_tpu.ops import fir, gmsk
     from openbts_ttsou_tpu.parallel.sharded import _slot_windows
-    from openbts_ttsou_tpu.trx import ChanType, TrxConfig, init_state
+    from openbts_ttsou_tpu.trx import TrxConfig, init_state
     from openbts_ttsou_tpu.trx import engine as eng
-    from openbts_ttsou_tpu.utils import constants as C
-    from openbts_ttsou_tpu.utils.xfer import device_put_safe
+    from openbts_ttsou_tpu.utils.compile_cache import enable_compile_cache
 
+    dev0 = jax.devices()[0]
+    if dev0.platform != "gpu":
+        raise SystemExit(f"the bake-off measures the GPU; found "
+                         f"{dev0.platform}")
+    enable_compile_cache()
     spec = UplinkSpec(frames=13)
+    f = spec.frames
     rows = []
-
-    def run_one(n_chan: int, impl: str) -> float:
-        cfg = TrxConfig(n_chan=n_chan)
-        chan_type = np.zeros((n_chan, 8), np.int32)
-        chan_type[:, 1:] = ChanType.I
-        chan_type[:, 0] = ChanType.IV
-        state = init_state(cfg)._replace(chan_type=jnp.asarray(chan_type))
-
-        rng = np.random.default_rng(0)
-        sym = (rng.standard_normal((n_chan, spec.block_symbols))
-               + 1j * rng.standard_normal((n_chan, spec.block_symbols))
-               ).astype(np.complex64) * 10.0
-        bits = np.concatenate(
-            [[0, 0, 0], rng.integers(0, 2, 57), [1],
-             C.TRAINING_SEQUENCE[0], [1], rng.integers(0, 2, 57),
-             [0, 0, 0]]).astype(np.uint8)
-        wave = 9000.0 * gmsk.modulate_burst_np(bits[None], 1)[0]
-        for c in range(n_chan):
-            for f in range(spec.frames):
-                off = f * 1250 + 157
-                sym[c, off: off + 148] += wave
-        dev = device_put_safe(sym)
-
-        def block(st, s):
-            if impl == "batched":
-                return process_block_exact(cfg, spec.frames, st, s)
-            wins = _slot_windows(s, spec.frames)
-            return lax.scan(lambda a, fr: eng.rx_step(cfg, a, fr),
-                            st, wins)
-
-        def make_fused(length):
-            @jax.jit
-            def fused(state, samples):
-                def body(st, _):
-                    s = jnp.roll(samples, st.fn % 3, axis=0)
-                    st, res = block(st, s)
-                    return st, (jnp.sum(res.soft_bits[..., 0]),
-                                jnp.sum(res.detected))
-                st, (probes, dets) = lax.scan(body, state, None,
-                                              length=length)
-                return jnp.sum(probes), jnp.sum(dets)
-            return fused
-
-        f1, f2 = make_fused(args.iters), make_fused(2 * args.iters)
-
-        def timed(fn):
-            t0 = time.perf_counter()
-            probe, _ = fn(state, dev)
-            float(np.asarray(probe))
-            return time.perf_counter() - t0
-
-        float(np.asarray(f1(state, dev)[0]))  # compile + warm
-        float(np.asarray(f2(state, dev)[0]))
-        t1 = min(timed(f1) for _ in range(args.reps))
-        t2 = min(timed(f2) for _ in range(args.reps))
-        dt = t2 - t1
-        if dt <= 0:
-            return 0.0
-        return args.iters * n_chan * spec.block_symbols / dt
-
     for n_chan in (int(x) for x in args.carriers.split(",")):
-        for impl in ("batched", "scan"):
-            sps = run_one(n_chan, impl)
+        cfg = TrxConfig(n_chan=n_chan)
+        state = init_state(cfg)._replace(
+            chan_type=jnp.asarray(standard_chan_type(n_chan)))
+        sym = jax.device_put(
+            planted_symbols(n_chan, spec.block_symbols, f))
+        impls = {
+            "batched": jax.jit(
+                lambda st, s: process_block_exact(cfg, f, st, s)),
+            "scan": jax.jit(lambda st, s: lax.scan(
+                lambda a, fr: eng.rx_step(cfg, a, fr), st,
+                _slot_windows(s, f))),
+        }
+        for impl, fn in impls.items():
+            jax.block_until_ready(fn(state, sym))  # compile + warm
+            ts = []
+            for _ in range(args.reps):
+                t0 = time.perf_counter()
+                jax.block_until_ready(fn(state, sym))
+                ts.append((time.perf_counter() - t0) * 1e3)
             rows.append({"carriers": n_chan, "impl": impl,
-                         "Msps": round(sps / 1e6, 1)})
-            print(f"[bakeoff] {n_chan}@{impl}: "
-                  f"{rows[-1]['Msps']} Msps", file=sys.stderr)
+                         "median_ms_per_block": statistics.median(ts),
+                         "min_ms_per_block": min(ts)})
+            print(f"[bakeoff] {n_chan}@{impl}: median "
+                  f"{rows[-1]['median_ms_per_block']} ms/block, min "
+                  f"{rows[-1]['min_ms_per_block']}", file=sys.stderr,
+                  flush=True)
 
-    # the recommended boundary: largest carrier count where batched wins
-    boundary = 0
+    # the recommended boundary: the largest carrier count up to which
+    # the batched schedule wins at every count measured
     by_c = {}
     for r in rows:
-        by_c.setdefault(r["carriers"], {})[r["impl"]] = r["Msps"]
+        by_c.setdefault(r["carriers"], {})[r["impl"]] = \
+            r["median_ms_per_block"]
+    boundary = 0
     for c_, d in sorted(by_c.items()):
-        if d.get("batched", 0) >= d.get("scan", 0):
-            boundary = c_
-    import jax as _j
+        if d["batched"] > d["scan"]:
+            break
+        boundary = c_
     print(json.dumps({"metric": "exact_engine_bakeoff", "rows": rows,
                       "recommended_batch_max_chan": boundary,
-                      "device": str(_j.devices()[0])}))
+                      "reps": args.reps, "platform": dev0.platform,
+                      "device_kind": dev0.device_kind}))
 
 
 if __name__ == "__main__":

@@ -1,43 +1,36 @@
 #!/usr/bin/env python
-"""Roofline placement of the uplink block program on the TPU chip.
+"""Roofline placement of the uplink block program on the GPU.
 
 Uses XLA's own compiled-program cost model (`compiled.cost_analysis()`:
-FLOPs and bytes accessed, the compiler's accounting — not an estimate)
-for the fused uplink block at each carrier count, and combines it with
-the measured block time (BENCH_r03_sweep.json if present, else a quick
-in-process timing) to place each configuration against the chip's
-compute and HBM-bandwidth ceilings.
-
-This is the evidence behind ARCHITECTURE.md's roofline note: what bound
-the 512→1024-carrier falloff, and how far from speed-of-light the
-chain runs.
+FLOPs and bytes accessed, the compiler's accounting) for the uplink
+block at each carrier count, times the compiled block on the device,
+and places each configuration against the card's float32 compute and
+HBM-bandwidth ceilings from `PEAKS`.
 
 Caveats on reading the numbers:
 - "bytes accessed" is the pre-fusion logical count — an upper bound on
-  HBM traffic (fusion keeps intermediates on-chip), which is why the
-  fast mode's achieved GB/s can exceed nominal HBM bandwidth.
-- XLA counts a lax.scan body ONCE, not per trip: `exact` mode's
-  figures are per-frame-body counts plus the front-end, NOT the
-  13-frame block totals, so compare exact rows to fast rows only via
-  the measured wall-clock columns.
+  HBM traffic (fusion keeps intermediates on-chip).
+- XLA counts a lax.scan body ONCE, not per trip: the threshold-walk
+  scan of `process_block_exact` is counted for one frame.
 
-    python tools/roofline.py                 # 128/512/1024, fast mode
-    BENCH_MODE=exact python tools/roofline.py
+    python tools/roofline.py
 """
 
 import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# TPU v5e (v5 lite) public peaks: 197 TFLOP/s bf16, one QUARTER of
-# that for fp32 matmul on the MXU (fp32 operands take 4 bf16 passes),
-# 819 GB/s HBM BW.
-PEAK_BF16 = 197e12
-PEAK_F32 = 49e12  # fp32 matmul on the MXU (no bf16 downcast in this chain)
-PEAK_HBM = 819e9
+#: Published peaks per `device_kind`: dense float32 outside the tensor
+#: cores (every contraction on this path asks for Precision.HIGHEST,
+#: which keeps float32 off TF32) and HBM bandwidth. Source: NVIDIA H100
+#: Tensor Core GPU data sheet, SXM5 column (at its 700 W power limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_flops": 67e12, "hbm_bytes": 3.35e12,
+                              "source": "NVIDIA H100 data sheet, SXM5"},
+}
 
 
 def main():
@@ -46,31 +39,19 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     from openbts_ttsou_tpu.models.transceiver import (UplinkSpec,
                                                       uplink_block)
     from openbts_ttsou_tpu.trx import ChanType, TrxConfig, init_state
-    from openbts_ttsou_tpu.utils.xfer import device_put_safe
+    from openbts_ttsou_tpu.utils.compile_cache import enable_compile_cache
 
-    mode = os.environ.get("BENCH_MODE", "exact")
+    kind = jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise SystemExit(f"no published peaks for device_kind {kind!r}")
+    peak = PEAKS[kind]
+    enable_compile_cache()
+
     max_toa = int(os.environ.get("BENCH_MAX_TOA", "0")) or None
-    block_fn = {"exact": uplink_block}[mode]
     spec = UplinkSpec(frames=13)
-
-    # measured seconds-per-block from the sweep artifact, if present
-    sweep = {}
-    sweep_path = os.path.join(REPO, "BENCH_r03_sweep.json")
-    if os.path.exists(sweep_path):
-        for r in json.load(open(sweep_path)):
-            d = r.get("detail", {})
-            if (r.get("mode") == mode and d
-                    and d.get("max_toa") == max_toa):
-                sweep[r["carriers"]] = (d["seconds"] / d["iters"],
-                                        r["value"])
-
     rows = []
     for n_chan in (128, 512, 1024):
         cfg = TrxConfig(n_chan=n_chan, max_toa=max_toa)
@@ -80,43 +61,40 @@ def main():
         state = init_state(cfg)._replace(
             chan_type=jnp.asarray(chan_type))
         rng = np.random.default_rng(0)
-        dev = device_put_safe(
+        dev = jax.device_put(
             (rng.standard_normal((n_chan, spec.block_in))
              + 1j * rng.standard_normal((n_chan, spec.block_in))
              ).astype(np.complex64) * 50)
 
-        lowered = jax.jit(
-            lambda s, x: block_fn(cfg, spec, s, x)).lower(state, dev)
-        cost = lowered.compile().cost_analysis()
+        compiled = uplink_block.lower(cfg, spec, state, dev).compile()
+        cost = compiled.cost_analysis()
         if isinstance(cost, list):  # older jax returns [dict]
             cost = cost[0]
         flops = float(cost.get("flops", 0.0))
         byts = float(cost.get("bytes accessed", 0.0))
 
-        t_block, msps = sweep.get(n_chan, (None, None))
-        row = {
+        jax.block_until_ready(compiled(state, dev))
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = compiled(state, dev)
+        jax.block_until_ready(out)
+        t_block = (time.perf_counter() - t0) / reps
+        t_min = max(flops / peak["f32_flops"], byts / peak["hbm_bytes"])
+        rows.append({
             "carriers": n_chan,
-            "mode": mode,
             "max_toa": max_toa,
-            "gflop_per_block": round(flops / 1e9, 2),
-            "mb_per_block": round(byts / 1e6, 1),
-            "arith_intensity_flop_per_byte": round(flops / byts, 2),
-            # the knee of the v5e fp32 roofline sits at 49e12/819e9 ≈ 60
-            # FLOP/byte; intensity below that ⇒ HBM-bandwidth-bound
-        }
-        if t_block:
-            row.update({
-                "measured_ms_per_block": round(t_block * 1e3, 2),
-                "Msps": msps,
-                "achieved_tflops": round(flops / t_block / 1e12, 3),
-                "achieved_GBps": round(byts / t_block / 1e9, 1),
-                "pct_hbm_peak": round(100 * byts / t_block / PEAK_HBM, 1),
-                "pct_f32_peak": round(100 * flops / t_block / PEAK_F32, 1),
-            })
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+            "gflop_per_block": flops / 1e9,
+            "mb_per_block": byts / 1e6,
+            "flop_per_byte": flops / byts,
+            "ms_per_block": t_block * 1e3,
+            "roofline_share": t_min / t_block,
+            "bound": ("compute" if flops / peak["f32_flops"]
+                      > byts / peak["hbm_bytes"] else "memory"),
+        })
+        print(json.dumps(rows[-1]), flush=True)
 
-    print(json.dumps({"rows": rows}))
+    print(json.dumps({"device_kind": kind, "peaks": peak, "rows": rows}))
 
 
 if __name__ == "__main__":
